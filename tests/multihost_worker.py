@@ -29,7 +29,7 @@ def main() -> None:
     )
     assert jax.process_count() == nproc
 
-    from banzai_tpu.parallel.multihost import encode_multihost_path
+    from banzai_jax.parallel.multihost import encode_multihost_path
 
     report: dict = {}
     out = encode_multihost_path(inp, level, report=report)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from banzai_tpu.bitio import BitWriter, pack_bits_numpy
+from banzai_jax.bitio import BitWriter, pack_bits_numpy
 
 
 def test_bitwriter_known_vector():

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from banzai_tpu.bitio import BitWriter, pack_bits_numpy
-from banzai_tpu.huffman_host import canonical_codes
-from banzai_tpu.ops.bitpack import canonical_words, pack_entries
+from banzai_jax.bitio import BitWriter, pack_bits_numpy
+from banzai_jax.huffman_host import canonical_codes
+from banzai_jax.ops.bitpack import canonical_words, pack_entries
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

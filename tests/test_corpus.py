@@ -15,8 +15,8 @@ import re
 
 import pytest
 
-from banzai_tpu.encoder_host import compress as host_compress
-from banzai_tpu.oracle import banzai_compress
+from banzai_jax.encoder_host import compress as host_compress
+from banzai_jax.oracle import banzai_compress
 
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "corpus")
 CASES = sorted(glob.glob(os.path.join(CORPUS, "*.bin")))

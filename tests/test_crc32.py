@@ -1,6 +1,6 @@
 import random
 
-from banzai_tpu.crc32 import block_crc, block_crc_slow, combine_stream_crc
+from banzai_jax.crc32 import block_crc, block_crc_slow, combine_stream_crc
 
 
 def test_fast_matches_slow_oracle():

@@ -9,8 +9,8 @@ import random
 
 import pytest
 
-from banzai_tpu.encoder_host import compress as host_compress
-from banzai_tpu.pipeline import compress as device_compress
+from banzai_jax.encoder_host import compress as host_compress
+from banzai_jax.pipeline import compress as device_compress
 
 
 def _gen(rng: random.Random) -> bytes:

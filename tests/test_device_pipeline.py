@@ -13,15 +13,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from banzai_tpu.encoder_host import compress as host_compress
-from banzai_tpu.huffman_host import plan_entropy, pm_code_lengths
-from banzai_tpu.mtf_rle2 import mtf_indices, rle2_encode
-from banzai_tpu.ops.bwt import bwt_rotations
-from banzai_tpu.ops.huffman import plan_entropy_device, pm_lengths
-from banzai_tpu.ops.mtf import mtf_indices_device
-from banzai_tpu.ops.rle2 import rle2_device
-from banzai_tpu.oracle.stages import numpy_bwt
-from banzai_tpu.pipeline import compress as device_compress
+from banzai_jax.encoder_host import compress as host_compress
+from banzai_jax.huffman_host import plan_entropy, pm_code_lengths
+from banzai_jax.mtf_rle2 import mtf_indices, rle2_encode
+from banzai_jax.ops.bwt import bwt_rotations
+from banzai_jax.ops.huffman import plan_entropy_device, pm_lengths
+from banzai_jax.ops.mtf import mtf_indices_device
+from banzai_jax.ops.rle2 import rle2_device
+from banzai_jax.oracle.stages import numpy_bwt
+from banzai_jax.pipeline import compress as device_compress
+
+# Real-world text that every machine with JAX has: jax's own lax.py.
+_LAX_PY = os.path.join(os.path.dirname(jax.__file__), "_src", "lax", "lax.py")
 
 
 @pytest.mark.parametrize("seed,n", [(0, 1), (1, 6), (2, 500), (3, 5000)])
@@ -123,16 +126,13 @@ def test_hardness_sorted_out_of_order_stitch(bunzip):
     are encoded out of input order (periodic blocks group together), but
     the payload stitch by sequence id must reproduce the exact host
     stream."""
-    from banzai_tpu.pipeline import _hardness, compress as pipe_compress
+    from banzai_jax.pipeline import _hardness, compress as pipe_compress
 
     rng = random.Random(9)
     data = (
         rng.randbytes(120_000)              # hard-ish (random)
         + b"ab" * 60_000                    # periodic
-        + open(
-            "/opt/venv/lib/python3.12/site-packages/jax/_src/lax/"
-            "lax.py", "rb"
-        ).read()[:120_000]                  # text
+        + open(_LAX_PY, "rb").read()[:120_000]  # text
         + b"\x07" * 120_000                 # run-heavy
     )
     # Sanity: the predictor separates periodic from text.
@@ -145,21 +145,17 @@ def test_hardness_sorted_out_of_order_stitch(bunzip):
     assert bunzip(dev) == data
 
 
-@pytest.mark.skipif(
-    not os.environ.get("BANZAI_SCALE"),
-    reason="full-shape (900 KB block) device-stage run is opt-in: "
-    "BANZAI_SCALE=1",
-)
-def test_bwt_device_full_shape_vs_oracle(sample_blob):
+@pytest.mark.gpu
+def test_bwt_device_full_shape_vs_oracle(gpu, repo_blob):
     """BWT at the real level-9 block shape (CI-shaped unit tests run at
-    N=8192; bench/chip campaigns are the only other full-shape coverage).
-    Mixed text + a long run + a periodic tail stresses every code path
-    (round-1 prefix, chain resolution, full rounds, all three tiers)."""
-    from banzai_tpu.pipeline import _padded_len
-    from banzai_tpu.rle1 import iter_blocks
+    N=8192; this one needs the card's memory and speed).  Mixed text + a
+    long run + a periodic tail stresses every code path (round-1 prefix,
+    chain resolution, full rounds, all three tiers)."""
+    from banzai_jax.pipeline import _padded_len
+    from banzai_jax.rle1 import iter_blocks
 
     data = (
-        sample_blob * 6 + b"\x00" * 40_000 + b"abcde" * 9_000
+        repo_blob * 6 + b"\x00" * 40_000 + b"abcde" * 9_000
     ) * 3
     blk = next(iter_blocks(data, 9))
     rle1 = np.asarray(blk.output)

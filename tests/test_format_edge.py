@@ -11,8 +11,8 @@ max-size block through the edge.
 
 import numpy as np
 
-from banzai_tpu.encoder_host import block_plan, compress as host_compress
-from banzai_tpu.rle1 import split_blocks
+from banzai_jax.encoder_host import block_plan, compress as host_compress
+from banzai_jax.rle1 import split_blocks
 
 
 def test_max_block_selector_count_near_edge(bunzip):

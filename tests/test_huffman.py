@@ -1,14 +1,14 @@
 import numpy as np
 import pytest
 
-from banzai_tpu.constants import CODEWORD_MAX_LEN
-from banzai_tpu.huffman_host import (
+from banzai_jax.constants import CODEWORD_MAX_LEN
+from banzai_jax.huffman_host import (
     canonical_codes,
     plan_entropy,
     pm_code_lengths,
     segment_histogram,
 )
-from banzai_tpu.oracle.banzai_model import banzai_code_lengths
+from banzai_jax.oracle.banzai_model import banzai_code_lengths
 
 
 @pytest.mark.parametrize("seed,n", [(0, 3), (1, 10), (2, 258), (3, 100)])
@@ -64,9 +64,9 @@ def _device_banzai(syms, num_syms):
     import jax
     import jax.numpy as jnp
 
-    from banzai_tpu.constants import SEGMENT_WIDTH, MAX_SYMS
-    from banzai_tpu.ops.banzai_plan import banzai_plan_device
-    from banzai_tpu.ops.huffman import segment_hist
+    from banzai_jax.constants import SEGMENT_WIDTH, MAX_SYMS
+    from banzai_jax.ops.banzai_plan import banzai_plan_device
+    from banzai_jax.ops.huffman import segment_hist
 
     n = len(syms)
     nseg = (n + SEGMENT_WIDTH - 1) // SEGMENT_WIDTH
@@ -91,8 +91,8 @@ def _device_banzai(syms, num_syms):
 def test_banzai_plan_device_matches_oracle(seed, n, ns):
     """The jit heap + closed-form accumulators must reproduce the oracle's
     4-iteration quirky refinement bit for bit (tables, nt, total bits)."""
-    from banzai_tpu.oracle.banzai_model import banzai_entropy_plan
-    from banzai_tpu.huffman_host import (
+    from banzai_jax.oracle.banzai_model import banzai_entropy_plan
+    from banzai_jax.huffman_host import (
         selector_bits, table_delta_bits, payload_bits, segment_histogram,
     )
 
@@ -125,7 +125,7 @@ def test_banzai_lengths_device_rescale_path():
     device build must walk the same scaling<<=1 rescale loop."""
     import jax.numpy as jnp
 
-    from banzai_tpu.ops.banzai_plan import banzai_lengths_device
+    from banzai_jax.ops.banzai_plan import banzai_lengths_device
 
     ns = 40
     freqs = np.zeros(258, np.int64)
@@ -151,7 +151,7 @@ def test_banzai_lengths_device_random(seed):
     oracle heap exactly."""
     import jax.numpy as jnp
 
-    from banzai_tpu.ops.banzai_plan import banzai_lengths_device
+    from banzai_jax.ops.banzai_plan import banzai_lengths_device
 
     rng = np.random.default_rng(seed)
     ns = int(rng.integers(2, 259))
@@ -182,10 +182,10 @@ def test_banzai_bits_from_split_matches_device_plan(seed, n, ns):
     import jax
     import jax.numpy as jnp
 
-    from banzai_tpu.constants import SEGMENT_WIDTH
-    from banzai_tpu.huffman_host import banzai_bits_from_split, banzai_wins
-    from banzai_tpu.ops.banzai_plan import banzai_split_device
-    from banzai_tpu.ops.huffman import segment_hist
+    from banzai_jax.constants import SEGMENT_WIDTH
+    from banzai_jax.huffman_host import banzai_bits_from_split, banzai_wins
+    from banzai_jax.ops.banzai_plan import banzai_split_device
+    from banzai_jax.ops.huffman import segment_hist
 
     rng = np.random.default_rng(seed)
     syms = np.minimum(
@@ -223,7 +223,7 @@ def test_pm_lengths_device_packed_key_matches_host(seed):
     import jax
     import jax.numpy as jnp
 
-    from banzai_tpu.ops.huffman import pm_lengths
+    from banzai_jax.ops.huffman import pm_lengths
 
     rng = np.random.default_rng(seed)
     ns = int(rng.integers(3, 259))

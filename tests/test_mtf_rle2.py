@@ -3,8 +3,8 @@ import random
 import numpy as np
 import pytest
 
-from banzai_tpu.mtf_rle2 import mtf_indices, rle2_encode
-from banzai_tpu.oracle.stages import naive_mtf_rle2
+from banzai_jax.mtf_rle2 import mtf_indices, rle2_encode
+from banzai_jax.oracle.stages import naive_mtf_rle2
 
 
 def _present(block: np.ndarray) -> np.ndarray:

@@ -28,7 +28,7 @@ def _corpus() -> bytes:
     import numpy as np
 
     rng = np.random.default_rng(7)
-    txt = open(os.path.join(REPO, "banzai_tpu", "rle1.py"), "rb").read()
+    txt = open(os.path.join(REPO, "banzai_jax", "rle1.py"), "rb").read()
     parts = [
         txt * 3,
         b"abcde" * 8000,
@@ -85,7 +85,7 @@ def test_two_process_stream_matches_single_host(tmp_path, level, nproc):
     multi, _ = _run_multihost(tmp_path, data, level, nproc)
 
     # Single-host reference (this process, CPU backend via conftest).
-    from banzai_tpu.pipeline import compress
+    from banzai_jax.pipeline import compress
 
     single = compress(data, level)
     assert multi == single, (
@@ -110,7 +110,7 @@ def test_four_process_scaling_accounted(tmp_path):
     data = _corpus() * 5 + _corpus()[::-1] * 3
     multi, report = _run_multihost(tmp_path, data, 1, 4, want_report=True)
 
-    from banzai_tpu.pipeline import compress
+    from banzai_jax.pipeline import compress
 
     single = compress(data, 1)
     assert multi == single

@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from banzai_tpu.bitio import BitWriter
-from banzai_tpu.parallel.multihost import encode_multihost, plan_spans
-from banzai_tpu.parallel.serial import BlockPayload
-from banzai_tpu.rle1 import split_blocks
+from banzai_jax.bitio import BitWriter
+from banzai_jax.parallel.multihost import encode_multihost, plan_spans
+from banzai_jax.parallel.serial import BlockPayload
+from banzai_jax.rle1 import split_blocks
 
 
 def test_block_payload_serialization_roundtrip():
@@ -61,9 +61,9 @@ def test_encode_multihost_single_process(bunzip):
 def test_spanwise_encode_matches_single(bunzip):
     """Encoding spans independently and stitching payloads reproduces the
     single-host stream (the multi-host composition invariant)."""
-    from banzai_tpu.container import write_stream_footer, write_stream_header
-    from banzai_tpu.crc32 import combine_stream_crc
-    from banzai_tpu.pipeline import compress, compress_blocks_payloads
+    from banzai_jax.container import write_stream_footer, write_stream_header
+    from banzai_jax.crc32 import combine_stream_crc
+    from banzai_jax.pipeline import compress, compress_blocks_payloads
 
     data = random.Random(2).randbytes(260_000)
     level = 1
@@ -88,7 +88,7 @@ def test_hybrid_host_device_byte_identical(bunzip):
     """Hybrid scheduling (spawn-pool host workers stealing blocks from the
     device stream) must produce the exact same .bz2 stream as pure-device
     encode — the ordered stitch is the only shared state."""
-    from banzai_tpu.pipeline import compress
+    from banzai_jax.pipeline import compress
 
     rng = random.Random(7)
     data = bytes(

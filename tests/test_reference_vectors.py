@@ -7,9 +7,9 @@ lib/mtf.rs:123) — they pass here.
 
 import numpy as np
 
-from banzai_tpu.bitio import BitWriter
-from banzai_tpu.mtf_rle2 import mtf_indices, rle2_encode
-from banzai_tpu.oracle.stages import naive_bwt, numpy_bwt
+from banzai_jax.bitio import BitWriter
+from banzai_jax.mtf_rle2 import mtf_indices, rle2_encode
+from banzai_jax.oracle.stages import naive_bwt, numpy_bwt
 
 
 def test_bwt_smoke_vector():

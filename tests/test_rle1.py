@@ -3,7 +3,7 @@ import random
 import numpy as np
 import pytest
 
-from banzai_tpu import rle1
+from banzai_jax import rle1
 
 
 def _assert_same(data: bytes, level: int) -> None:

@@ -4,8 +4,8 @@ VERDICT r1 item 7: make the large-stream validation repeatable, with the
 memory ceiling asserted (bounded by the span size, not the input size).
 
 The always-on variant streams ~12 MB through ``encode()`` with a 4 MB span
-on the CPU-mesh jax backend.  The full 100 MB run (TPU-speed hardware
-recommended) is opt-in: ``BANZAI_SCALE=1 python -m pytest
+on the CPU-mesh jax backend.  The full 100 MB run (accelerator-speed
+hardware recommended) is opt-in: ``BANZAI_SCALE=1 python -m pytest
 tests/test_scale.py -k full``.  Both assert peak traced Python allocations
 stay a small multiple of the span size — the reference's streaming
 contract (lib/lib.rs:84-117 pulls fixed-size reads and never buffers the
@@ -21,7 +21,7 @@ import tracemalloc
 
 import pytest
 
-from banzai_tpu import encode
+from banzai_jax import encode
 
 
 def _corpus(mb: int) -> bytes:

@@ -8,16 +8,22 @@ RLE1-coded runs (periodic), random, and degenerate tiny blocks.
 
 from __future__ import annotations
 
+import os
+
+import jax
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
+# Real-world text that every machine with JAX has: jax's own lax.py.
+_LAX_PY = os.path.join(os.path.dirname(jax.__file__), "_src", "lax", "lax.py")
+
 
 def _cases():
     rng = np.random.default_rng(7)
     text = (
-        open("/opt/venv/lib/python3.12/site-packages/jax/_src/lax/lax.py", "rb")
+        open(_LAX_PY, "rb")
         .read()[:6000]
     )
     return {
@@ -34,8 +40,8 @@ def _cases():
 
 @pytest.mark.parametrize("name", sorted(_cases()))
 def test_sharded_matches_single_chip(name):
-    from banzai_tpu.ops.bwt import bwt_rotations
-    from banzai_tpu.parallel.spbwt import bwt_rotations_sharded, lane_mesh
+    from banzai_jax.ops.bwt import bwt_rotations
+    from banzai_jax.parallel.spbwt import bwt_rotations_sharded, lane_mesh
 
     data = _cases()[name]
     N = 8192
@@ -61,8 +67,8 @@ def test_sharded_matches_single_chip(name):
 def test_sharded_matches_single_chip_random(seed):
     """Randomized content + lengths straddling shard boundaries (N/8
     multiples +/- 1) — the relabel carry and merge-split edges."""
-    from banzai_tpu.ops.bwt import bwt_rotations
-    from banzai_tpu.parallel.spbwt import bwt_rotations_sharded, lane_mesh
+    from banzai_jax.ops.bwt import bwt_rotations
+    from banzai_jax.parallel.spbwt import bwt_rotations_sharded, lane_mesh
 
     rng = np.random.default_rng(100 + seed)
     N = 4096
@@ -93,8 +99,8 @@ def test_sharded_stall_group_split_regression():
     """A doubling round can split a tie group into smaller multi-groups
     without resolving any lane; the stall rule must compare group counts,
     not lane counts (review finding, verified counterexample)."""
-    from banzai_tpu.oracle.stages import naive_bwt
-    from banzai_tpu.parallel.spbwt import bwt_rotations_sharded, lane_mesh
+    from banzai_jax.oracle.stages import naive_bwt
+    from banzai_jax.parallel.spbwt import bwt_rotations_sharded, lane_mesh
 
     data = b"\x00" * 7 + b"\x01" + b"\x00" * 5 + b"\x01"
     N = 16
@@ -113,9 +119,9 @@ def test_exhaustive_tiny_binary_vs_naive():
     (also covers the tiny-N static-slice extension in ops/bwt.py)."""
     import itertools
 
-    from banzai_tpu.oracle.stages import naive_bwt
-    from banzai_tpu.ops.bwt import bwt_rotations
-    from banzai_tpu.parallel.spbwt import bwt_rotations_sharded, lane_mesh
+    from banzai_jax.oracle.stages import naive_bwt
+    from banzai_jax.ops.bwt import bwt_rotations
+    from banzai_jax.parallel.spbwt import bwt_rotations_sharded, lane_mesh
 
     mesh = lane_mesh()
     N = 16
@@ -135,8 +141,8 @@ def test_exhaustive_tiny_binary_vs_naive():
 
 def test_sharded_oracle_roundtrip():
     """Independent check against the naive rotation-sort oracle."""
-    from banzai_tpu.oracle.stages import naive_bwt
-    from banzai_tpu.parallel.spbwt import bwt_rotations_sharded, lane_mesh
+    from banzai_jax.oracle.stages import naive_bwt
+    from banzai_jax.parallel.spbwt import bwt_rotations_sharded, lane_mesh
 
     data = b"the quick brown fox jumps over the lazy dog" * 40
     N = 2048
@@ -163,8 +169,8 @@ def test_sharded_million_lanes_and_memory_scaling():
 
     import jax
 
-    from banzai_tpu.oracle.stages import numpy_bwt
-    from banzai_tpu.parallel.spbwt import bwt_rotations_sharded, lane_mesh
+    from banzai_jax.oracle.stages import numpy_bwt
+    from banzai_jax.parallel.spbwt import bwt_rotations_sharded, lane_mesh
 
     N = 1 << 20
     rng = np.random.default_rng(11)
@@ -208,8 +214,8 @@ def test_chain_resolution_round_count_periodic():
     ("aaaaC" repeats) plus a random tail must exit the doubling loop with
     k still small (chains fire at k0=7; without them k doubled to the
     region length, ~2^17)."""
-    from banzai_tpu.oracle.stages import numpy_bwt
-    from banzai_tpu.parallel.spbwt import bwt_rotations_sharded, lane_mesh
+    from banzai_jax.oracle.stages import numpy_bwt
+    from banzai_jax.parallel.spbwt import bwt_rotations_sharded, lane_mesh
 
     rng = np.random.default_rng(11)
     periodic = (b"aaaa\xfb" * 45_000)          # 225_000 bytes, period 5
